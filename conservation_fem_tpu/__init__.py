@@ -1,12 +1,12 @@
-"""conservation_fem_tpu — TPU-native finite-element conservation-law framework.
+"""conservation_fem_tpu — finite-element conservation-law framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
-alleswe2k/Conservation-FEM (reference: /root/reference): scalar hyperbolic
+A from-scratch JAX/XLA rebuild of the capabilities of
+alleswe2k/Conservation-FEM (the FEniCSx reference): scalar hyperbolic
 conservation laws in 2D, continuous P1-P3 Lagrange FEM, stabilized by
 residual-viscosity (RV) and smoothness-indicator (SI) artificial viscosity,
 plus the compressible-Euler / incompressible Navier-Stokes prototypes.
 
-Design (TPU-first, not a port):
+Design (array-first, not a port):
   * Mesh = dense arrays (points, cells, ELL adjacency) built host-side once.
   * Assembly = closed-form per-cell local matrices, vmapped over cells,
     scatter-added into an ELL sparse layout via sorted segment_sum
@@ -23,7 +23,7 @@ Design (TPU-first, not a port):
 
 Precision policy: all kernels are dtype-parameterized. Accuracy-gated runs
 (convergence tests, reference-field comparison) use float64 (native on CPU);
-TPU throughput runs default to float32. Nothing in this package flips global
+GPU throughput runs default to float32. Nothing in this package flips global
 JAX flags — tests/conftest.py enables x64 for the test suite.
 """
 

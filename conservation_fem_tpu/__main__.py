@@ -127,4 +127,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from conservation_fem_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     sys.exit(main())

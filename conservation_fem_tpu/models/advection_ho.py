@@ -59,11 +59,11 @@ class HOAdvectionConfig:
     # (exceeds the reference, whose gmsh meshes are straight triangles)
     curved_boundary: bool = False
     # "blocked": blocked-window Pk backend (ops/blocked_pk.py) — RCM dof
-    # permutation, window operators, componentwise per-step assembly; the
-    # fast TPU path (solutions live in the permuted numbering; compare
-    # via spaces.rcm_dof_permutation)
+    # permutation, window operators, componentwise per-step assembly
+    # (solutions live in the permuted numbering; compare via
+    # spaces.rcm_dof_permutation)
     ell_matvec_backend: str = "gather"
-    # fixed-iteration solvers (TPU throughput; None = adaptive)
+    # fixed-iteration solvers (throughput path; None = adaptive)
     cg_iters: int | None = None
     krylov_iters: int | None = None
     inner_solver: str = "bicgstab"

@@ -2,9 +2,9 @@
 
 Same math as PkHyperbolicProblem (identical to summation-order roundoff —
 tests/test_blocked_pk.py) on an RCM-permuted dof numbering: all per-step
-gathers/scatters/assemblies run as the component-major one-hot MXU ops of
-ops/blocked.py + ops/blocked_pk.py instead of XLA gathers/segment_sums.
-This is the fast TPU path for higher-order spaces
+gathers/scatters/assemblies run as the component-major one-hot contractions
+of ops/blocked.py + ops/blocked_pk.py instead of XLA gathers/segment_sums,
+for higher-order spaces
 (ref Code/Burgers_equation/higher_order_SI.py P2 SI Burgers); the lattice
 backend remains for structured-mesh matvecs, but it cannot remove the
 per-step assembly scatters — this backend does.

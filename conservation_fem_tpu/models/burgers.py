@@ -135,8 +135,7 @@ def flux_prime_norm(u):
     return jnp.sqrt(2.0) * jnp.abs(u)
 
 
-# componentwise f' for kernels where stacked (...,2) outputs are
-# pathological (see ops/pallas_fused.py / models/kpp.py)
+# componentwise f' for the plane-form quadrature kernels (see models/kpp.py)
 flux_prime_xy = (lambda u: u, lambda u: u)
 
 

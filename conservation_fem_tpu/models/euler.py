@@ -12,7 +12,7 @@ problem with RV shock capturing"):
     (same EOS as the reference flux tensor, ref euler_RV.py:40-46).
   * group FEM: F_h = sum_j F(U_j) phi_j, so div-flux assembly is two ELL
     SpMVs per component against precomputed Cx, Cy — no quadrature in the
-    hot loop (TPU-friendly; standard Guermond-Popov formulation).
+    hot loop (standard Guermond-Popov formulation).
   * RV from the density residual, beta = |u| + c (local wavespeed), via the
     same patch kernel family as the scalar workloads (ref RV.py:56-90).
   * SSP-RK2 with lumped mass; Dirichlet far-field (IC-valued) boundary.

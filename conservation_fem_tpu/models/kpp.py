@@ -58,25 +58,23 @@ class KPPConfig:
     solver_unroll: bool = True          # see HyperbolicConfig
     # lean structured mesh (ops/mesh.rectangle_mesh_lean): skip the
     # generic patch/scatter structure the stencil backend never reads —
-    # its host build costs ~115 GB RAM at mesh 2048 (the measured OOM
-    # ceiling). None = auto: lean whenever the stencil path will be used
+    # its host build is O(N log N) in memory and passes 100 GB RAM at
+    # mesh 2048. None = auto: lean whenever the stencil path will be used
     # and mesh_size >= 512. Identical geometry/trajectories (tested).
     lean_mesh: bool | None = None
-    tiled_bf16_planes: bool = False     # see HyperbolicConfig
     xla_bf16_planes: bool = False       # see HyperbolicConfig
     # unstructured operator application (h5/gmsh meshes): "gather" (XLA
     # gather ELL), "banded" (RCM diagonals), or "blocked" (blocked-window
-    # dense MXU ops + RCM, ops/blocked.py — the fast unstructured path).
+    # dense contractions + RCM, ops/blocked.py).
     # banded/blocked meshes built here are RCM-reordered automatically;
     # caller-provided host_mesh must already be RCM-ordered.
     ell_matvec_backend: str = "gather"
-    # blocked backend: matrix-free per-step operators (see HyperbolicConfig;
-    # default off — the assembled windowed path is 4x faster on TPU)
+    # blocked backend: matrix-free per-step operators (see HyperbolicConfig)
     blocked_matrix_free: bool = False
     dtype: str = "float64"
     record_metrics: bool = False
-    # "auto": stencil backend on structured meshes (gather-free, ~10x step
-    # speed on TPU), ELL otherwise. "ell" forces the generic path.
+    # "auto": stencil backend on structured meshes (gather-free), ELL
+    # otherwise. "ell" forces the generic path.
     backend: str = "auto"
 
 
@@ -95,9 +93,9 @@ def flux_prime_norm(u):
     return jnp.ones_like(u)
 
 
-# componentwise form of flux_prime, for kernels where stacked (...,2)
-# outputs are pathological (Mosaic compiles rank-3 trailing-dim-2 arrays
-# ~100x slower than rank-2 — see ops/pallas_fused.py)
+# componentwise form of flux_prime: the plane-form quadrature kernels
+# (ops/structured.nonlinear_rhs / flux_jacobian_coef) evaluate each
+# component as its own grid-shaped array instead of a stacked (...,2) one
 flux_prime_xy = (jnp.cos, lambda u: -jnp.sin(u))
 
 
@@ -147,7 +145,6 @@ def build(cfg: KPPConfig | None = None, host_mesh: Mesh | None = None, **kw):
         newton_final_residual=cfg.newton_final_residual,
         precise_reductions=cfg.precise_reductions,
         solver_unroll=cfg.solver_unroll,
-        tiled_bf16_planes=cfg.tiled_bf16_planes,
         xla_bf16_planes=cfg.xla_bf16_planes,
         ell_matvec_backend=cfg.ell_matvec_backend,
         blocked_matrix_free=cfg.blocked_matrix_free,

@@ -1,7 +1,7 @@
 """Linear advection u_t + w . grad u = 0, solid-body rotation on the unit
 disk (or a rectangle), Crank-Nicolson in time, P1 in space.
 
-TPU-native rebuild of the reference workload family
+Rebuild of the reference workload family
 Code/Linear_advection/ (SURVEY.md section 2.2):
 
   * gfem     — unstabilized Galerkin CN (ref linear_advection.py:112-182)
@@ -74,19 +74,19 @@ class AdvectionConfig:
     # blocked backend: f32 one-hots + HIGHEST-precision contractions.
     # Default ON for advection: a full rotation is a long smooth-
     # transport horizon where bf16 operand streams diffuse the bump
-    # (L2-vs-exact 1.24e-1 vs 1.38e-2 precise vs 1.16e-2 gather f64 —
-    # measured round 4, RESULTS.md). Shock workloads keep bf16.
+    # (f32 one-hots stay near the f64 gather error; accuracy on the H100
+    # not measured). Shock workloads keep bf16.
     blocked_precise: bool = True
     krylov_rtol: float = 1e-12
     # "banded": RCM-diagonal operator application (gather-free; requires an
     # RCM-ordered mesh — build with reorder_mesh(rcm_permutation(m)));
-    # "blocked": blocked-window dense MXU ops (ops/blocked.py — the fast
-    # TPU path for the reference's unstructured gmsh meshes; build()
+    # "blocked": blocked-window dense contractions (ops/blocked.py — for
+    # the reference's unstructured gmsh meshes; build()
     # RCM-reorders the mesh automatically, so solutions live in RCM
     # numbering). rv_cell with blocked raises (its last-cell-wins scatter
     # is order-dependent; use gather or the distributed "max" variant).
     ell_matvec_backend: str = "gather"
-    # fixed-iteration solvers (TPU throughput; None = adaptive to
+    # fixed-iteration solvers (throughput path; None = adaptive to
     # krylov_rtol). cg_iters: the BDF1-residual mass solve;
     # krylov_iters: the CN solve. inner_solver="cheby" runs both as
     # dot-free Chebyshev semi-iterations (mass: Wathen [0.5,2] Jacobi

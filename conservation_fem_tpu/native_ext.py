@@ -1,9 +1,10 @@
 """ctypes binding for the native C++ mesh preprocessor (native/*.cpp).
 
-Builds the shared library on first use with g++ -O3 (cached next to the
-source); every entry point has a NumPy fallback in ops/mesh.py, so the
-framework works even if no compiler is available. Equality of the two
-paths is covered by tests/test_native.py.
+The library is not committed: it is built from native/mesh_preprocess.cpp
+on first use with g++ -O3 and cached next to the source (git-ignored),
+and rebuilt when the source is newer. Every entry point has a NumPy
+fallback in ops/mesh.py, so the framework works even if no compiler is
+available. Equality of the two paths is covered by tests/test_native.py.
 """
 
 from __future__ import annotations
@@ -32,11 +33,15 @@ def _load():
             if (not os.path.exists(_LIB)) or (
                 os.path.getmtime(_LIB) < os.path.getmtime(_SRC)
             ):
+                # build beside the target and rename: processes that
+                # load concurrently never see a half-written library
+                tmp = f"{_LIB}.{os.getpid()}.tmp"
                 subprocess.run(
                     ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-                     "-o", _LIB, _SRC],
+                     "-o", tmp, _SRC],
                     check=True, capture_output=True,
                 )
+                os.replace(tmp, _LIB)
             lib = ctypes.CDLL(_LIB)
             lib.cft_preprocess_mesh.restype = ctypes.c_int
             lib.cft_preprocess_mesh.argtypes = [

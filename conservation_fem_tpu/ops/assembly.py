@@ -1,6 +1,6 @@
 """P1 finite-element assembly as vectorized cell kernels + ELL scatter.
 
-TPU-native replacement for UFL forms + ffcx JIT + PETSc assembly
+Replacement for UFL forms + ffcx JIT + PETSc assembly
 (ref Code/Linear_advection/linear_advection.py:110-124 and the
 FFC-generated tabulate_tensor kernels in Burger_CPP/Burger.h).
 
@@ -26,8 +26,8 @@ import jax
 import jax.numpy as jnp
 
 from conservation_fem_tpu.ops.mesh import MeshArrays
-# geometry/quadrature contractions must be exact f32 on TPU —
-# see ops/precision.py for the measured rationale
+# geometry/quadrature contractions run at exact f32 (no TF32/bf16
+# operand rounding) — see ops/precision.py
 from conservation_fem_tpu.ops.precision import einsum_exact as _einsum
 
 

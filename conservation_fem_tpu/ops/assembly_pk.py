@@ -4,7 +4,7 @@ Replaces ffcx-generated element kernels for higher-degree spaces
 (ref UFL forms at Code/Linear_advection/GFEM_pol.py:63-67 and the generated
 tabulate_tensor kernels in Burger_CPP/Burger.h). Everything is one einsum
 over (cells x quadrature points) with tabulated reference basis values —
-batched dense work that XLA maps straight onto the TPU vector/matrix units.
+batched dense work that XLA compiles to fused device kernels.
 
 All outputs use the ELL layout defined by the space's dof adjacency, so the
 SpMV/BC/stabilization machinery from the P1 path applies unchanged.
@@ -16,8 +16,8 @@ import jax
 import jax.numpy as jnp
 
 from conservation_fem_tpu.ops.spaces import SpaceArrays
-# geometry/quadrature contractions must be exact f32 on TPU —
-# see ops/precision.py for the measured rationale
+# geometry/quadrature contractions run at exact f32 (no TF32/bf16
+# operand rounding) — see ops/precision.py
 from conservation_fem_tpu.ops.precision import einsum_exact as _einsum
 
 

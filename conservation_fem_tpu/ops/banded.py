@@ -3,8 +3,8 @@
 After RCM reordering (ops/mesh.rcm_permutation) every ELL column offset
 col - row lies within the matrix bandwidth B ~ O(sqrt(N)); the operator can
 then be stored as 2B+1 diagonals and applied as shifted multiply-adds —
-no gather at all. Measured on the v5e chip (disk mesh, 3169 nodes, B=65):
-55 us/SpMV vs 176 us for the XLA gather ELL form (3.2x).
+no gather at all (its speed against the gather ELL form on the H100 is
+not measured).
 
 Trade-off: storage inflates from (N, K) to (N, 2B+1); use on meshes where
 B stays O(sqrt(N)) (any RCM-ordered planar mesh). Conversion from ELL is a

@@ -1,8 +1,8 @@
 """Blocked-window backend for Pk (degree 2-3) spaces.
 
 The Pk gather-ELL pipeline pays per-step XLA gathers (u[cell_dofs]) and
-segment_sum scatters (assembly) — the ops measured catastrophically slow
-on TPU (ops/blocked.py module docstring). This extends the blocked-window
+segment_sum scatters (assembly) — the ops the blocked-window backend
+removes (ops/blocked.py module docstring). This extends the blocked-window
 machinery to any Lagrange degree: the structural plan builder
 (blocked._plan_struct) is degree-agnostic (component-major one-hot
 gather/scatter over RCM'd dof windows), and the quadrature kernels below
@@ -94,7 +94,7 @@ def make_blocked_pk_plan(space: FunctionSpace, nb: int = 128,
 
     precise: f32 one-hot storage + Precision.HIGHEST contractions, the
     quality mode for long smooth-transport horizons (see
-    blocked.make_blocked_plan for the measured motivation)."""
+    blocked.make_blocked_plan)."""
     st = blocked._plan_struct(
         space.ndof, np.asarray(space.cell_dofs, np.int64),
         space.patch_cols, space.patch_mask, space.boundary_mask, nb,
@@ -131,7 +131,7 @@ def make_blocked_pk_plan(space: FunctionSpace, nb: int = 128,
 # ---------------------------------------------------------------------------
 # componentwise Pk quadrature kernels (twins of ops/assembly_pk.py)
 # All loops over (q, a, b) are Python-unrolled; every operand is a clean
-# (blocks, C) lane plane (see blocked.py on TPU lane padding).
+# (blocks, C) plane (see blocked.py on layout padding).
 # ---------------------------------------------------------------------------
 
 

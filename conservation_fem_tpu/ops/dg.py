@@ -6,7 +6,7 @@ Code/KPP/KPP_NodeRV_plot.py:46-47 builds ("DG",0) and ("DG",1) spaces;
 L2-projects it onto CG1 with a mass solve; Code/Utils/helpers.py:25-36
 is the DG0 twin of the same projection).
 
-TPU-first design: DG dofs never couple across cells, so a DG_k field
+Array-first design: DG dofs never couple across cells, so a DG_k field
 needs no global numbering, gathers, or scatter adjacency — it is simply
 a dense per-cell array, ``(M,)`` for DG0 and ``(M, 3)`` for DG1 (local
 dof j sits at vertex ``cells[m, j]``'s coordinates, like the reference's

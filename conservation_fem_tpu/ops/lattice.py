@@ -8,20 +8,19 @@ present in the sparsity, a coefficient plane P_o with
 
     (A x)[i, j] = sum_o  P_o[i, j] * x[i + oi, j + oj]
 
-i.e. a shifted multiply-accumulate — the same TPU-friendly form as the
+i.e. a shifted multiply-accumulate — the same gather-free form as the
 hand-built P1 stencil in ops/structured.py, but derived automatically
 from ANY assembled ELL matrix. This is the "generalized lattice-stencil
 converter" that gives Stokes (P2 velocity / P1 pressure solves) and
 higher-order advection their stencil backend.
 
 Conversion runs host-side once (numpy); application is pure static
-slicing + elementwise MACs (no gathers), so XLA fuses it and Mosaic
-could lower it. Identity with ell_matvec is tested to f64 roundoff
+slicing + elementwise MACs (no gathers), so XLA fuses it. Identity with ell_matvec is tested to f64 roundoff
 (tests/test_lattice.py).
 
 ref: the reference gets its operators as PETSc CSR from FEniCSx and
 MatMult is gather-bound (SURVEY.md L0); there is no reference analog of
-this conversion — it is TPU-native design (SURVEY §7 hard part #2).
+this conversion (SURVEY §7 hard part #2).
 """
 
 from __future__ import annotations

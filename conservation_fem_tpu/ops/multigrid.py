@@ -1,9 +1,9 @@
-"""Geometric multigrid for lattice-stencil operators (TPU-native).
+"""Geometric multigrid for lattice-stencil operators.
 
 Why: the IPCS solves' Krylov iteration counts grow with resolution —
 kappa ~ 1/h^2 means kip = 3*nx pressure sweeps and ki ~ nx momentum
-sweeps per step (models/stokes.auto_kip, RESULTS.md round-4
-calibration). A Galerkin-coarsened V-cycle makes the counts
+sweeps per step (models/stokes.auto_kip,
+scripts/calibrate_stokes_ki.py). A Galerkin-coarsened V-cycle makes the counts
 resolution-INDEPENDENT while keeping every op in the gather-free
 lattice-stencil form of ops/lattice.py:
 
@@ -16,7 +16,7 @@ lattice-stencil form of ops/lattice.py:
     matvec is the same shifted-MAC form as the fine-grid LatticeOp.
   * smoother: weighted Jacobi — elementwise, dot-free, symmetric.
   * coarsest level: a precomputed dense inverse applied as one small
-    matmul (MXU work).
+    matmul.
 
 Supports C-component block operators (the 2x2 IPCS momentum block with
 its nonsymmetric boundary-edge coupling) and scalar ones (the pressure
@@ -28,7 +28,7 @@ pinned (unit diagonal, zero row/col) and coarsen correctly through RAP.
 
 ref Code/Compressible_euler/stokes.py:104-125: the reference solves
 these systems with PETSc defaults (GMRES/ILU-class); multigrid here is a
-TPU-first replacement for the resolution-scaling iteration counts, not a
+replacement for the resolution-scaling iteration counts, not a
 port. Identity/convergence gates: tests/test_multigrid.py.
 """
 

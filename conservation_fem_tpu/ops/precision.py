@@ -1,23 +1,18 @@
 """Exact-f32 einsum for geometry/quadrature contractions.
 
 FEM assembly contractions have tiny contraction dims (space dim d=2,
-local basis a/b <= 10, quadrature q <= 12) — far below the MXU tile
-size — but XLA still lowers them to MXU dot_generals whose DEFAULT
-precision rounds f32 operands to bf16 per pass. That injects a
-SYSTEMATIC ~4e-3 relative perturbation into the assembled operators,
-not noise: measured round 4 on-chip, the 569-step RV-node advection
-trajectory (bench_advection) landed L2rel 1.63e-2 from the f64 anchor
-IDENTICALLY on the gather and blocked backends — both share the
-per-step ``assemble_eps_stiffness`` einsums — vs 3.5e-3 on exact-f32
-CPU, and IC-perturbation probes showed the trajectory is not chaotic,
-so the gap was pure operator bias. ``Precision.HIGHEST`` keeps these
-contractions exact f32 at negligible cost (they are VPU/bandwidth
-bound either way at these shapes).
+local basis a/b <= 10, quadrature q <= 12), but XLA may still lower them
+to matrix-unit dot_generals whose DEFAULT precision rounds f32 operands
+(to TF32 on the H100). That rounding is a SYSTEMATIC perturbation of the
+assembled operators, not noise, and it is shared by the gather and
+blocked backends through the per-step ``assemble_eps_stiffness``
+einsums. ``Precision.HIGHEST`` keeps these contractions exact f32; what
+it costs on the H100 is not measured.
 
 The blocked-window backend (ops/blocked.py and its sharded twins) is
 deliberately NOT routed through this helper: its one-hot gather/scatter
 contractions choose bf16 vs f32 per-plan (``plan_precision`` /
-``precise`` — RESULTS.md "Blocked-backend precision modes").
+``precise``).
 """
 
 from __future__ import annotations
@@ -32,15 +27,15 @@ def einsum_exact(*args, **kwargs):
 
 # -- deterministic-enough f32 reductions -------------------------------------
 # Sharded f32 trajectories diverge from the single-device run at ~1e-3
-# over the KPP horizon (measured round 4): the psum'd dots / means reduce
+# over the KPP horizon (measured on virtual CPU devices): the psum'd dots / means reduce
 # in a different order than the single-device reductions, the ~f32-eps
 # difference seeds the shock dynamics, and chaos amplifies it ~4 orders.
 # Accumulating BOTH sides' reductions in f64 (inputs stay f32) shrinks the
 # seed to f64-summation-order eps and the trajectory gap to ~1e-9
-# (asserted by __graft_entry__.dryrun_multichip path 12). Requires
+# (asserted by __graft_entry__.dryrun_multichip path 10). Requires
 # jax_enable_x64 (else astype(f64) silently stays f32 and these degrade
-# to the plain reductions); on TPU the O(N) scalar cost is negligible
-# against the O(N*window) matvecs.
+# to the plain reductions); the O(N) f64 reductions are small next to the
+# O(N*window) matvecs.
 
 
 def dot_acc64(a, b):

@@ -1,6 +1,6 @@
 """Pk Lagrange function spaces (k = 1, 2, 3) on triangle meshes.
 
-TPU-native replacement for basix/dolfinx function spaces
+Replacement for basix/dolfinx function spaces
 (ref fem.functionspace(domain, ("Lagrange", degree)) — used at degree 2 in
 Code/Linear_advection/RV_node.py:48, degree 3 in higher_order_RV.py:29,
 degree sweeps in GFEM_pol.py:63-67, and P2-P1 Taylor-Hood in

@@ -1,7 +1,7 @@
 """ELL sparse matrix-vector products and operator composition.
 
 The ELL layout (values aligned with ``Mesh.patch_cols``) makes SpMV a single
-(N,K) gather + row reduction — the TPU-friendly replacement for PETSc
+(N,K) gather + row reduction — the replacement for PETSc
 CSR MatMult (ref L0 in SURVEY.md; PETSc KSP usage at
 Code/Linear_advection/linear_advection.py:128-131).
 """

@@ -1,6 +1,6 @@
 """Artificial-viscosity stabilization: RV and SI epsilon kernels.
 
-Vectorized TPU replacements for the reference's per-node Python loops:
+Vectorized replacements for the reference's per-node Python loops:
 
   * RV (residual viscosity), 5 variants mirroring class RV
     (ref Code/Utils/RV.py:27-142).

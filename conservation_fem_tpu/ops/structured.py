@@ -5,8 +5,8 @@ On structured rectangle triangulations (ops/mesh.rectangle_mesh with the
 KPP benchmark, ref Code/Burgers_equation/Exact_Burger_RV.py:28) every node
 neighbor sits at a fixed (di, dj) grid offset. All sparse operators then
 become 7-plane stencils and every gather/scatter becomes a statically
-shifted slice — pure VPU work. Measured on the v5e chip: 32 us vs 893 us
-per SpMV against the generic ELL gather path (28x).
+shifted slice — elementwise work that XLA fuses. Its speed against the
+generic ELL gather path on the H100 is not measured.
 
 Identities maintained (tested): every structured op here equals its
 unstructured ELL counterpart to roundoff on the same mesh.
@@ -29,8 +29,8 @@ import jax.numpy as jnp
 
 from conservation_fem_tpu.ops import stabilization as stab
 import numpy as np
-# geometry/quadrature contractions must be exact f32 on TPU —
-# see ops/precision.py for the measured rationale
+# geometry/quadrature contractions run at exact f32 (no TF32/bf16
+# operand rounding) — see ops/precision.py
 from conservation_fem_tpu.ops.precision import einsum_exact as _einsum
 
 
@@ -76,8 +76,8 @@ def build_structured(host_mesh: Mesh, nx: int, ny: int, dtype):
     )
     # mass stencil: local mass is type-independent. Built under jit so the
     # (2,nx,ny,3,3) broadcast fuses into the stencil-plane slices — eager,
-    # TPU pads the (3,3) trailing dims to (8,128) vregs, a 57x HBM blowup
-    # that OOMs at mesh 512 (2048^2 cells -> 16 GB for 288 MB of data).
+    # it is materialized with its small trailing dims padded in device
+    # layouts (2048^2 cells at mesh 512).
     mloc = area * (jnp.ones((3, 3), dtype) + jnp.eye(3, dtype=dtype)) / 12.0
 
     @jax.jit
@@ -190,8 +190,8 @@ def cell_grad(sd: StructuredData, x2):
 
 
 def _fp_comp(fprime, fprime_xy):
-    """Componentwise flux derivative (mirrors pallas_fused._fp_components;
-    duplicated so this module stays free of Pallas imports)."""
+    """Componentwise flux derivative: the model's fprime_xy pair, else
+    the two components sliced out of fprime."""
     if fprime_xy is not None:
         return fprime_xy
     return (lambda v: fprime(v)[..., 0]), (lambda v: fprime(v)[..., 1])
@@ -201,14 +201,10 @@ def nonlinear_rhs(sd: StructuredData, x2, fprime, fprime_xy=None):
     """N(u)_a = int (f'(u) . grad u) phi_a dx (cf. assembly.convection_rhs_flux).
 
     COMPONENTWISE quadrature: every intermediate is an (nx, ny) plane —
-    the q/a/d dims are unrolled Python loops over scalar weights. The
-    round-3 blocked-backend finding applies to XLA layouts here too: TPU
-    pads a trailing dim to 128 lanes, so materializing (2,nx,ny,Q) /
-    (...,2) intermediates costs 21-64x their logical bytes. The probe at
-    mesh 256 (scripts/probe_kpp_cost.py) measured ~1.0 ms per residual
-    evaluation vs a ~0.2 ms byte floor with the einsum forms this
-    replaces. Scalar-weighted plane MACs are also exact f32 (pure VPU,
-    no MXU operand rounding) — strictly at-least-as-accurate as the
+    the q/a/d dims are unrolled Python loops over scalar weights, so no
+    (2,nx,ny,Q) / (...,2) intermediate with a small, padded trailing dim
+    is materialized. Scalar-weighted plane MACs are also exact f32 (no
+    dot, so no operand rounding) — at least as accurate as the
     einsum_exact forms.
     """
     fx, fy = _fp_comp(fprime, fprime_xy)

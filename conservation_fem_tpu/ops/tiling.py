@@ -3,9 +3,8 @@
 The 1D RCM band gives the blocked plan a window W = nb + 2B with B the
 matrix bandwidth — and 2D meshes have B >= O(sqrt(N)) inherently, so
 one-hot operand bytes per DOF grow ~sqrt(N) and per-DOF throughput falls
-~1/sqrt(N) (measured r4: 3.06 M at N=19.9k -> 1.66 M at N=100.5k;
-RESULTS.md scaling analysis). This module implements the remedy sketched
-there: a locality-preserving 2D ordering whose per-block window width is
+~1/sqrt(N). This module implements the remedy: a locality-preserving 2D
+ordering whose per-block window width is
 INDEPENDENT of N.
 
 Layout ("equal-count kd tiles"): sort nodes by y into S equal-count
@@ -27,7 +26,7 @@ to no cells), and `Mesh.slot_valid` masks them out of global reductions
 (the RV mean via ops/blocked.rv_epsilon_* valid argument).
 
 ref analog: DOLFINx ghosted-CSR scale-out has no per-rank window at all
-(SURVEY 2.8); this is the TPU-native answer at the single-chip level —
+(SURVEY 2.8); this is the single-device answer —
 the gather-free dense-window form kept O(nb)-wide at any N.
 """
 

@@ -18,7 +18,7 @@ BlockedPkHyperbolicProblem: 1e-9 f64 over full runs
 
 ref: the reference's higher-order scripts (higher_order_SI.py,
 GFEM_pol.py) are MPI-distributable via DOLFINx; this is that capability
-on the TPU-native fast Pk path.
+on the blocked Pk path.
 """
 
 from __future__ import annotations

@@ -19,7 +19,7 @@ single-device BlockedHyperbolicProblem: 1e-9 over full runs
 
 ref: every reference script is MPI-distributable for free via DOLFINx
 (Code/Linear_advection/linear_advection.py:40-42,165,170); this is that
-capability on the TPU-native fast path.
+capability on the blocked path.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Node partitioning + halo index structures for unstructured meshes.
 
 Host-side preprocessing for the distributed ELL path
-(parallel/unstructured_sharded.py): the TPU equivalent of DOLFINx's mesh
+(parallel/unstructured_sharded.py): the equivalent of DOLFINx's mesh
 partitioning with ghost nodes (SURVEY.md section 2.8; partitioners
 ParMETIS/PT-SCOTCH in the reference env, ref Environment/fenicsx-env.yml).
 

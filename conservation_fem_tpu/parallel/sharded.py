@@ -1,6 +1,6 @@
-"""Multi-chip execution: cell-partitioned kernels over a jax device mesh.
+"""Multi-device execution: cell-partitioned kernels over a jax device mesh.
 
-TPU-native replacement for the reference's MPI domain decomposition
+Replacement for the reference's MPI domain decomposition
 (SURVEY.md section 2.8: DOLFINx partitions the mesh across ranks and
 accumulates shared-node contributions with ``b.ghostUpdate(ADD, REVERSE)``,
 ref Code/Linear_advection/linear_advection.py:40-42,165).
@@ -10,7 +10,7 @@ v1 decomposition ("owner-cells, replicated nodes"):
   * the cell-wise hot kernels — nonlinear flux residual assembly and
     eps-weighted stiffness assembly, the reference's dominant per-step cost
     — are sharded over contiguous cell blocks with ``shard_map``; partial
-    nodal accumulations are combined with ``jax.lax.psum`` over ICI, which
+    nodal accumulations are combined with ``jax.lax.psum``, which
     is exactly the ghostUpdate(ADD) pattern expressed as an XLA collective.
 
 Cell arrays are padded with degenerate zero-area cells (node index 0) so

@@ -1,5 +1,5 @@
 """Domain-decomposed stencil solver: grid rows sharded over a device mesh
-with one-row halo exchange — the TPU equivalent of the reference's MPI
+with one-row halo exchange — the equivalent of the reference's MPI
 mesh partitioning (SURVEY.md section 2.8: DOLFINx ghost nodes +
 ``b.ghostUpdate(ADD, REVERSE)``, ref Code/Linear_advection/
 linear_advection.py:165).
@@ -126,7 +126,7 @@ class ShardedStructuredKPP:
 
         Componentwise layout (ops/structured nonlinear_rhs rationale):
         the corner dim stays a Python list so no (..., 3) trailing dim is
-        ever materialized with a padded TPU layout.
+        ever materialized with a padded device layout.
         """
         xe = self._halo(x)                     # rows offset +1
         L, ny = self.L, self.ny

@@ -122,7 +122,7 @@ class VTXWriter:
 
     DOCUMENTED SUBSTITUTION: the reference engine is ADIOS2 BP4; adios2
     is not available in this environment (and is a heavyweight C++
-    dependency with no TPU role), so this writes the ParaView-native
+    dependency with no device role), so this writes the ParaView-native
     equivalent — one binary-appended ``.vtu`` per time step plus a
     ``.pvd`` index — which serves the identical purpose (time-series
     visualization of P1 scalar/vector fields in ParaView). A ``*.bp``
@@ -131,7 +131,7 @@ class VTXWriter:
 
     Per-write I/O cost is measured (``stats`` -> bytes + seconds), making
     the BASELINE.md I/O row (reference VTX: ~18.6 MB, ~17.1 ms/write)
-    directly comparable — see RESULTS.md "VTX writer substitution".
+    directly comparable (tests/test_vtx.py).
 
     Fields are bound at construction like DOLFINx Functions: pass either
     an array (snapshotted at each ``write`` from whatever you reassign

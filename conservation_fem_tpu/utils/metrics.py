@@ -4,7 +4,7 @@ Replaces the reference's tqdm bars + C++ tic/toc prints
 (ref Code/KPP/KPP_exact.py:117-119, Burger_CPP/main.cpp:458-462) with
 structured metrics (models already emit dicts from lax.scan when
 record_metrics=True) and wall-clock utilities, plus a jax.profiler trace
-context for TPU timeline capture.
+context for device timeline capture.
 """
 
 from __future__ import annotations

@@ -4,7 +4,8 @@ Matplotlib-based parity with the reference's pyvista tooling
 (ref Code/Utils/PDE_plot.py — plot_pv warped-field screenshots :45-69,
 plot_convergence with fitted slope annotation :71-96, plot_grid :99-110;
 Code/Utils/PDE_realtime_plot.py — per-step dual-pane GIF writer).
-Headless-safe (Agg backend); no pyvista/X dependency.
+Headless-safe (Agg backend); no pyvista/X dependency. matplotlib is
+imported when a plot is made, not with this module.
 """
 
 from __future__ import annotations
@@ -13,14 +14,20 @@ import os
 
 import numpy as np
 
-import matplotlib
 
-matplotlib.use("Agg")
-import matplotlib.pyplot as plt
-import matplotlib.tri as mtri
+def _mpl():
+    """(pyplot, tri) on the headless Agg backend."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    import matplotlib.tri as mtri
+
+    return plt, mtri
 
 
 def _triangulation(mesh):
+    _, mtri = _mpl()
     if getattr(mesh, "periodic", False):
         # make_periodic meshes: seam cells index the fold's master nodes,
         # so triangulating points[cells] draws domain-spanning triangles.
@@ -41,6 +48,7 @@ def plot_dg_field(mesh, d, title, filename, location, show_edges=False):
     KPP_NodeRV_plot.py's DG carriers). Vertices are duplicated per cell
     so inter-cell discontinuities render as true jumps instead of being
     smeared by a shared-vertex Gouraud fill."""
+    plt, mtri = _mpl()
     os.makedirs(location, exist_ok=True)
     d = np.asarray(d)
     p = np.asarray(mesh.points)[np.asarray(mesh.cells)]      # (M,3,2)
@@ -67,6 +75,7 @@ def plot_dg_field(mesh, d, title, filename, location, show_edges=False):
 def plot_field(mesh, u, title, filename, location, three_d=False, show_edges=False):
     """Scalar P1 field snapshot, 2D tripcolor or 3D trisurf
     (ref PDE_plot.plot_pv, PDE_plot.py:45-69)."""
+    plt, _ = _mpl()
     os.makedirs(location, exist_ok=True)
     tri = _triangulation(mesh)
     u = np.asarray(u)
@@ -92,6 +101,7 @@ def plot_field(mesh, u, title, filename, location, three_d=False, show_edges=Fal
 def plot_grid(mesh, filename, location, node_labels=False):
     """Mesh wireframe (ref PDE_plot.plot_grid :99-110; node labels as in
     tests/verification/patch_test.py:162-181)."""
+    plt, _ = _mpl()
     os.makedirs(location, exist_ok=True)
     tri = _triangulation(mesh)
     fig, ax = plt.subplots(figsize=(7, 7))
@@ -109,6 +119,7 @@ def plot_grid(mesh, filename, location, node_labels=False):
 def plot_convergence(errors, mesh_sizes, title, filename, location):
     """log-log convergence plot with fitted slope annotation
     (ref PDE_plot.plot_convergence, PDE_plot.py:71-96)."""
+    plt, _ = _mpl()
     os.makedirs(location, exist_ok=True)
     hs = 1.0 / np.asarray(mesh_sizes, dtype=float)
     errors = np.asarray(errors, dtype=float)
@@ -140,6 +151,7 @@ class RealtimePlot:
         self.frames = []
 
     def add_frame(self, u, eps=None, t=None):
+        plt, _ = _mpl()
         tri = _triangulation(self.mesh)
         ncols = 2 if eps is not None else 1
         fig, axes = plt.subplots(1, ncols, figsize=(6 * ncols, 5))
@@ -174,6 +186,7 @@ class RealtimePlot:
             )
         except ImportError:
             # fall back to per-frame PNGs
+            plt, _ = _mpl()
             base, _ = os.path.splitext(self.path)
             for i, f in enumerate(self.frames):
                 plt.imsave(f"{base}_{i:04d}.png", f)

@@ -2,8 +2,8 @@
 //
 // Role: the compiled host-side component of the framework — the analog of
 // the reference's native layer (Burger_CPP/: compiled element kernels +
-// driver; SURVEY.md section 2.6 native-parity requirement). On TPU the
-// element kernels live in XLA/Pallas; what remains genuinely host-side and
+// driver; SURVEY.md section 2.6 native-parity requirement). On the device
+// the element kernels live in XLA; what remains genuinely host-side and
 // irregular is mesh preprocessing:
 //
 //   * node-adjacency (patch) graph construction from the cell list

@@ -24,9 +24,9 @@ def run(p):
 
 
 def main():
-    import __graft_entry__ as ge
+    from conservation_fem_tpu.utils.compile_cache import enable_compile_cache
 
-    ge._enable_compile_cache()
+    enable_compile_cache()
 
     from conservation_fem_tpu.models import kpp
 

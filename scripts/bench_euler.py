@@ -1,4 +1,4 @@
-"""TPU timing: compressible Euler (4-component group FEM + density RV +
+"""GPU timing: compressible Euler (4-component group FEM + density RV +
 SSP-RK2) — Sod tube (the reference euler_RV.py config, nx=100) and the
 2D Riemann config-3 four-shock problem at larger meshes.
 
@@ -28,9 +28,9 @@ GATE = 1e-3
 
 
 def main():
-    import __graft_entry__ as ge
+    from conservation_fem_tpu.utils.compile_cache import enable_compile_cache
 
-    ge._enable_compile_cache()
+    enable_compile_cache()
     import time
 
     import jax

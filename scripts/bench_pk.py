@@ -1,8 +1,6 @@
-"""TPU timing: P2 SI Burgers (higher_order_SI.py workload), lattice backend.
+"""GPU timing: P2 SI Burgers (higher_order_SI.py workload), lattice backend.
 
-Round-3 VERDICT item 6: the Pk pipeline was the worst perf outlier
-(27.8 ms/step at mesh 32, round-2 per-call timing). Amortized timing
-(timeharness) + fixed-iteration solvers with per-degree Chebyshev
+Repeat-difference timing (timeharness) + fixed-iteration solvers with per-degree Chebyshev
 bounds (BurgersConfig.inner_solver='cheby', committed spectra)
 vs the adaptive anchor.
 
@@ -19,9 +17,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 
 def main():
-    import __graft_entry__ as ge
+    from conservation_fem_tpu.utils.compile_cache import enable_compile_cache
 
-    ge._enable_compile_cache()
+    enable_compile_cache()
 
     from timeharness import measure_per_step
 

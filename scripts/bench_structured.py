@@ -1,4 +1,4 @@
-"""Structured (stencil) KPP bench sweep: fixed-iteration vs round-1 config.
+"""Structured (stencil) KPP bench sweep: fixed-iteration vs adaptive config.
 
 Usage: python scripts/bench_structured.py [mesh_size ...]
 """
@@ -27,11 +27,9 @@ def run(p):
 
 
 def main():
-    import __graft_entry__ as ge
+    from conservation_fem_tpu.utils.compile_cache import enable_compile_cache
 
-    ge._enable_compile_cache()
-
-    import dataclasses as dc
+    enable_compile_cache()
 
     from conservation_fem_tpu.models import kpp
 
@@ -40,14 +38,12 @@ def main():
     for ms in sizes:
         n_dofs = (4 * ms + 1) ** 2
 
-        # round-1 config: adaptive + pallas CG, modified newton below 128
+        # adaptive config, modified newton below 128
         cfg = kpp.KPPConfig(
             mesh_size=ms, dtype="float32", krylov_rtol=1e-5,
             newton_linear_rtol=1e-3, modified_newton=(ms <= 64))
-        p = kpp.build(cfg)
-        p.cfg = dc.replace(p.cfg, use_pallas=True)
-        t, u = run(p)
-        print(f"mesh {ms} (N={n_dofs}) round1-cfg: {t*1e3:8.3f} ms/step "
+        t, u = run(kpp.build(cfg))
+        print(f"mesh {ms} (N={n_dofs}) adaptive: {t*1e3:8.3f} ms/step "
               f"= {n_dofs/t/1e6:8.1f} M DOF-steps/s", flush=True)
 
         for (cgi, ni, li, frz) in [(10, 3, 8, True), (10, 3, 10, False),

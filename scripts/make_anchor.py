@@ -21,8 +21,8 @@ import time
 
 if __name__ == "__main__":
     # anchors are CPU f64 by definition; pin the platform BEFORE any jax
-    # op (bench_blocked_scaling imports irr_problem from here and must
-    # stay on the TPU, so the pin is main-only)
+    # op (bench_blocked_scaling and chip_smoke.py import irr_problem from
+    # here and must stay on the GPU, so the pin is main-only)
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -39,19 +39,30 @@ from conservation_fem_tpu.models import kpp  # noqa: E402
 # dt keeps dt/h_min <= ~0.64 on the jittered mesh; T bounds the run.
 _IRR = {140: dict(dt=0.005, T=0.5), 224: dict(dt=0.0025, T=0.25),
         316: dict(dt=0.0018, T=0.18),
-        # large-N rows for the 2D tiled blocked backend (r5): ~100 steps
+        # large-N rows for the 2D tiled blocked backend: ~100 steps
         # each at CFL-matched dt; anchors are f64 CPU gather-ELL runs
         448: dict(dt=0.00125, T=0.125), 640: dict(dt=0.0009, T=0.09)}
 
 
-def irr_problem(nx, dtype, **kw):
+# fixed-iteration solver config of the f32 irregular-mesh runs
+# (bench_blocked_scaling, chip_smoke.py), gated against the irr anchors
+IRR_FIXED = dict(modified_newton=True, cg_iters=10, newton_iters=3,
+                 newton_linear_iters=8)
+
+
+def irr_problem(nx, dtype, dt=None, T=None, **kw):
+    """KPP on the jittered-Delaunay mesh irr{nx}, RCM-ordered like the
+    committed anchors. dt/T default to the _IRR table (required for an nx
+    outside it)."""
     from conservation_fem_tpu.ops.mesh import (
         irregular_mesh, rcm_permutation, reorder_mesh,
     )
 
     m = irregular_mesh((-2, -2), (2, 2), nx=nx, seed=1)
     m = reorder_mesh(m, rcm_permutation(m))
-    cfg = kpp.KPPConfig(dtype=dtype, dt=_IRR[nx]["dt"], T=_IRR[nx]["T"],
+    cfg = kpp.KPPConfig(dtype=dtype,
+                        dt=_IRR[nx]["dt"] if dt is None else dt,
+                        T=_IRR[nx]["T"] if T is None else T,
                         backend="ell", **kw)
     if kw.get("ell_matvec_backend") == "blocked2d":
         # tile the RCM-ordered mesh so u_slots[prob.slot_of_node] is in

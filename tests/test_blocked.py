@@ -2,7 +2,7 @@
 
 Every blocked op must reproduce its ELL twin to summation-order roundoff
 (f64 here; conftest pins CPU + x64). The blocked backend exists purely for
-TPU performance — any numerical divergence beyond reordering noise is a bug.
+performance — any numerical divergence beyond reordering noise is a bug.
 """
 
 import jax.numpy as jnp
@@ -201,9 +201,8 @@ def test_constrained_matvec_match(setup):
 def test_sweep_form_semantics(setup):
     """sweep_form: no-op for f64 plans (identity tests stay exact); bf16
     copy for f32 plans, whose spmv matches the f32 einsum within bf16
-    operand eps (on TPU they are bitwise equal — default MXU matmul
-    precision rounds f32 operands to bf16 per pass; CPU computes the f32
-    einsum in full precision, hence the tolerance here)."""
+    operand eps (the f32 einsum runs in full precision on CPU, hence the
+    tolerance here)."""
     hm, m, plan, x = setup
     M = blocked.assemble_matrix(
         plan, assembly.local_mass(plan.area_b.reshape(-1)).reshape(

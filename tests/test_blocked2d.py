@@ -7,7 +7,7 @@ the SAME mesh, mapped through the slot numbering (the tiled solution
 lives in slot space: u_native = u_slots[slot_of_node]).
 
 ref analog: DOLFINx ghosted-CSR scale-out (SURVEY 2.8) — the reference
-has no single-rank window ceiling; this closes the same gap on-chip.
+has no single-rank window ceiling; this closes the same gap on one device.
 """
 
 import numpy as np
@@ -76,7 +76,7 @@ def test_full_run_identity_rv(meshes):
 
 
 def test_full_run_identity_fixed_iters(meshes):
-    """The TPU throughput config (modified Newton + fixed counts)."""
+    """The throughput config (modified Newton + fixed counts)."""
     m, mt, slot = meshes
     cfg = dict(dtype="float64", dt=0.005, T=0.03, backend="ell",
                modified_newton=True, cg_iters=6, newton_iters=2,

@@ -94,9 +94,8 @@ def test_distributed_blocked_advection_matches():
 def test_blocked_precise_f32_quality():
     """f32 blocked runs default to the PRECISE plan (f32 one-hots +
     Precision.HIGHEST contractions): over a long smooth-transport horizon
-    the bf16 operand streams visibly diffuse the solution (measured
-    L2-vs-exact 1.24e-1 bf16 vs 1.38e-2 precise vs 1.16e-2 gather-f64 on
-    the 569-step reference-disk rotation — RESULTS.md round 4). Gate:
+    the bf16 operand streams visibly diffuse the solution (the 569-step
+    reference-disk rotation). Gate:
     the precise f32 trajectory stays within f32 noise of gather-f32."""
     import jax.numpy as jnp
 

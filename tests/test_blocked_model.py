@@ -1,7 +1,7 @@
 """BlockedHyperbolicProblem end-to-end vs the gather-ELL problem.
 
 Adaptive solvers at 1e-12: the two backends must agree to summation-order
-roundoff over a full KPP run. Fixed-iteration unrolled solvers (the TPU
+roundoff over a full KPP run. Fixed-iteration unrolled solvers (the
 throughput configuration) must stay within the Newton tolerance band of the
 adaptive result.
 """

@@ -72,7 +72,7 @@ def test_distributed_blocked_fast_solvers_match():
 
 def test_distributed_blocked_matrix_free_matches():
     """The matrix-free per-step operators (blocked_matrix_free=True,
-    non-default: assembled windows are faster on TPU but the matrix-free
+    non-default: assembled windows are the default, but the matrix-free
     path stays supported) match single-device at 1e-9."""
     p = _build(blocked_matrix_free=True)
     u_single = np.asarray(p.solve().u)

@@ -57,7 +57,7 @@ def test_epsilon_localized_at_discontinuity():
 
 def test_banded_backend_matches_gather_on_gmsh_mesh():
     """RCM-banded operator application == gather ELL on the reference's
-    unstructured gmsh mesh (gather-free diagonals, 1.5x step speed on TPU)."""
+    unstructured gmsh mesh (gather-free diagonals)."""
     from conservation_fem_tpu.ops.mesh import (
         load_h5_mesh,
         rcm_permutation,

@@ -187,7 +187,7 @@ def test_make_periodic_single_axis():
 
 def test_rectangle_mesh_lean_matches_full():
     """ops/mesh.rectangle_mesh_lean: identical geometry to the generic
-    builder (r5 — unlocks mesh >= 2048 whose generic patch/scatter build
+    builder (unlocks mesh >= 2048 whose generic patch/scatter build
     exceeds host RAM), with placeholder sparse structure the stencil
     backend never reads."""
     import numpy as np

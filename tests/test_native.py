@@ -18,6 +18,19 @@ def test_native_builds():
     assert native_ext.available(), "g++ build of native/mesh_preprocess.cpp failed"
 
 
+def test_native_library_is_built_from_source_when_missing(tmp_path,
+                                                          monkeypatch):
+    """The library is not committed: first use compiles it from the C++
+    source to its (git-ignored) path."""
+    lib = tmp_path / "libcftmesh.so"
+    monkeypatch.setattr(native_ext, "_LIB", str(lib))
+    monkeypatch.setattr(native_ext, "_lib", None)
+    monkeypatch.setattr(native_ext, "_build_failed", False)
+    assert native_ext.available()
+    assert lib.exists()
+    assert not list(tmp_path.glob("*.tmp"))
+
+
 def test_native_matches_numpy_structures():
     base = disk_mesh(1 / 8)
     m_native = mesh_from_arrays(base.points, base.cells, use_native=True)

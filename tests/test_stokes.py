@@ -46,7 +46,7 @@ def test_lattice_backend_matches_ell():
 
 
 def test_fixed_iteration_solves_match_adaptive():
-    """krylov_iters=25 (the TPU throughput path) reproduces the adaptive
+    """krylov_iters=25 (the throughput path) reproduces the adaptive
     solution: Poiseuille oracle error unchanged to 3 digits, u to 5e-8."""
     r_ref = stokes.solve(stokes.build(num_steps=60, T=1.2,
                                       backend="lattice"))

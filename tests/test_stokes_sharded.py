@@ -74,7 +74,7 @@ def test_sharded_multigrid_matches_single_device():
 
 
 def test_sharded_multigrid_fixed_uneven_rows():
-    """MG + fixed iteration counts (the TPU throughput config) on a
+    """MG + fixed iteration counts (the throughput config) on a
     device count that does not divide the rows."""
     cfg = dict(nx=16, num_steps=20, T=0.4, backend="lattice",
                multigrid=True, krylov_iters=6)

@@ -121,3 +121,60 @@ def test_xla_bf16_planes():
     diff = np.abs(np.asarray(r32b.u) - ref).max()
     assert np.isfinite(np.asarray(r32b.u)).all()
     assert diff < 5e-3 * max(1.0, np.abs(ref).max()), diff
+
+
+def _fixed(inner_solver, **kw):
+    """bench.py-style fixed-iteration config; cheby gets twice the
+    BiCGStab count (1 matvec per iteration instead of 2)."""
+    return dict(mesh_size=4, T=0.05, cg_iters=6, newton_iters=2,
+                newton_linear_iters=4 if inner_solver == "bicgstab" else 8,
+                inner_solver=inner_solver, **kw)
+
+
+@pytest.mark.parametrize("stabilization", ["rv", "gfem"])
+@pytest.mark.parametrize("modified_newton", [True, False],
+                         ids=["frozen", "exact"])
+@pytest.mark.parametrize("inner_solver", ["bicgstab", "cheby"])
+def test_fixed_iteration_step_matches_ell(inner_solver, modified_newton,
+                                          stabilization):
+    """The composed-XLA fixed-iteration structured step (the GPU main
+    path) == the independent ELL/gather step with the same fixed counts,
+    at f64 roundoff, over the solver and stabilization choices."""
+    cfg = _fixed(inner_solver, modified_newton=modified_newton,
+                 stabilization=stabilization)
+    r_st = kpp.build(kpp.KPPConfig(backend="stencil", **cfg)).solve()
+    r_ell = kpp.build(kpp.KPPConfig(backend="ell", **cfg)).solve()
+    np.testing.assert_allclose(np.asarray(r_st.u), np.asarray(r_ell.u),
+                               atol=1e-10)
+
+
+# bf16 sweep planes perturb only the fixed-iteration solve directions, so
+# the f32 end state stays close to the f64 run of the same config:
+# measured 2.9e-6 L2rel at this size (plain f32: 5e-8). A bf16 residual or
+# quadrature pass would move it towards bf16 eps (~4e-3); 1e-4 tells the
+# two apart.
+BF16_PLANES_TOL = 1e-4
+
+
+@pytest.mark.parametrize("inner_solver", ["bicgstab", "cheby"])
+def test_xla_bf16_planes_f32_tracks_f64(inner_solver):
+    cfg = _fixed(inner_solver, modified_newton=True, backend="stencil")
+    u64 = np.asarray(kpp.build(kpp.KPPConfig(**cfg)).solve().u)
+    u32 = np.asarray(kpp.build(kpp.KPPConfig(
+        dtype="float32", xla_bf16_planes=True, **cfg)).solve().u)
+    assert u32.dtype == np.float32
+    rel = np.linalg.norm(u32 - u64) / np.linalg.norm(u64)
+    assert rel <= BF16_PLANES_TOL, rel
+
+
+def test_cheby_full_run_matches_adaptive():
+    """Chebyshev fixed-iteration config reproduces the adaptive f64
+    anchor on a full KPP run (same gate as the bicgstab fixed config)."""
+    anchor = np.asarray(
+        kpp.build(kpp.KPPConfig(mesh_size=8, T=0.2)).solve().u)
+    u = np.asarray(kpp.build(kpp.KPPConfig(
+        mesh_size=8, T=0.2, modified_newton=True, cg_iters=10,
+        newton_iters=2, newton_linear_iters=12,
+        inner_solver="cheby")).solve().u)
+    rel = np.linalg.norm(u - anchor) / np.linalg.norm(anchor)
+    assert rel < 2e-3, rel

@@ -3,7 +3,7 @@
 write(t)/close()).
 
 The reference engine is ADIOS2 BP4 (not available here, and a pure C++
-I/O dependency with no TPU role); utils/io.VTXWriter writes the
+I/O dependency with no device role); utils/io.VTXWriter writes the
 ParaView-native equivalent — one binary-appended .vtu per step + a .pvd
 index inside the reference-shaped ``*.bp`` directory — and measures its
 own I/O cost for comparison with the reference's profile
